@@ -1,16 +1,16 @@
-"""mgbtpu — TPU-native multigrid barrier framework.
+"""mgbtpu — multigrid barrier framework in JAX.
 
 A from-scratch JAX/XLA implementation of quasi-optimal interior-point
 solvers for convex variational problems in function spaces (p-Laplacian for
 p in [1, inf], total-variation denoising, obstacle problems, minimal
 surfaces, power-law elasticity, and parabolic variants), with the capability
-surface of sloisel/MultiGridBarrier.jl redesigned TPU-first: broken FEM
-operators as batched dense blocks on the MXU, hierarchy transfers as static
-gather/segment-sum plans, barrier functionals as vmapped pure per-node
-functions, damped Newton as jitted lax.while_loops, and node/element axes
-sharded with shard_map across chips.
+surface of sloisel/MultiGridBarrier.jl: broken FEM operators as batched
+dense blocks, hierarchy transfers as static gather/segment-sum plans,
+barrier functionals as vmapped pure per-node functions, damped Newton and
+the t-ramp as jitted lax.while_loops in float64 on the GPU or the CPU, and
+node/element axes sharded over a device mesh.
 """
-from . import _config  # noqa: F401  (enables x64 off-TPU)
+from . import _config  # noqa: F401  (enables x64)
 
 from .utils import Log, MGBConvergenceFailure, map_rows, interpolate, chebfun
 from .convex import (Convex, convex_euclidian_power, convex_Euclidian_power,

@@ -33,8 +33,7 @@ def scatter_vec(idx, vals, N):
 
     The indices are STATIC Python ints and N is tiny (the per-node
     component count), so the scatter is built from slices + concatenate:
-    no scatter HLO at all — required inside Pallas kernels (Mosaic has no
-    general scatter) and cheaper for XLA too.
+    no scatter HLO at all.
     """
     from ..ops.ddarray import cat, zeros
 
@@ -79,8 +78,8 @@ def gather(idx, y):
 
 def comp(x, j):
     """Static scalar component ``x[j]`` of a 1D (DD or plain) vector via
-    slice + reshape: jnp lowers integer indexing to a gather under vmap,
-    which Mosaic cannot lower inside Pallas kernels; a static slice it can.
+    slice + reshape: jnp lowers integer indexing to a gather under vmap;
+    a static slice stays a slice.
     """
     j = int(j) % x.shape[0]
     return x[j:j + 1].reshape(())
@@ -91,10 +90,10 @@ def comp(x, j):
 #
 # The constraint dimension nz is tiny and STATIC, so per-node vectors and
 # matrices are carried as Python lists of () scalars: under vmap each scalar
-# is a clean (tile,) lane vector, and the whole evaluation lowers to
-# elementwise ops + slices + concatenates — the exact op set Mosaic supports
-# inside Pallas kernels (per-node reshape(nz, nz) / matmul / einsum lower to
-# minor-dim shape casts and high-rank broadcasts that Mosaic rejects).
+# is a clean vector over the nodes, and the whole evaluation lowers to
+# elementwise ops + slices + concatenates (per-node reshape(nz, nz) /
+# matmul / einsum would lower to minor-dim shape casts and high-rank
+# broadcasts).
 # DD-transparent: the scalars may be double-float.
 # ---------------------------------------------------------------------------
 

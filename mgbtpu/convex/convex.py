@@ -1,6 +1,6 @@
 """The Convex container: barrier/cobarrier/slack + per-node parameter grids.
 
-TPU-native re-design of the reference's ``Convex{T}`` (``src/convex.jl:80-97``):
+Re-design of the reference's ``Convex{T}`` (``src/convex.jl:80-97``):
 the barrier is specified by pure per-node functions ``F(args_rows..., y)``
 evaluated via ``jax.vmap`` over the node axis — the exact analogue of the
 reference's "isbits functor broadcast through map_rows_gpu" design, which

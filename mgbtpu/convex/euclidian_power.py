@@ -7,8 +7,8 @@ Hessian are hand-coded closed forms; tests cross-check them against
 checks). Mirrors reference ``src/convex_euclidian_power.jl`` (functors at
 lines 66-253, constructor at 352-453).
 
-TPU notes: per-node functions are pure and shape-static; they vmap over the
-node axis and fuse into the surrounding barrier einsums under jit.
+Per-node functions are pure and shape-static; they vmap over the node axis
+and fuse into the surrounding barrier einsums under jit.
 """
 from __future__ import annotations
 
@@ -32,9 +32,8 @@ def _mu_of_p(p):
 
 def _core_parts(A_row, b_row, idx, y):
     """Per-node affine image z = A y[idx] + b in scalar-list form: ``A``
-    nested scalars, ``q`` a list of nz-1 scalars, ``s`` a scalar. The
-    scalar-list algebra (see convex/_common.py) is what lets the whole
-    node evaluation live inside one Pallas kernel."""
+    nested scalars, ``q`` a list of nz-1 scalars, ``s`` a scalar (the
+    scalar-list algebra of convex/_common.py)."""
     nz = b_row.shape[0]
     A = mat_scalars(A_row, nz, nz)
     ys = vec_scalars(y, n=nz, idx=idx)
@@ -48,7 +47,7 @@ def _pow_alpha(s, alpha, spec):
     STATIC specialization: alpha == 2 (p = 1, the headline p-Laplacian) and
     alpha == 1 (p = 2) avoid the transcendental exp/log chain entirely —
     on the dd path each safe_pow is a ~600-flop dd_log+dd_exp chain per
-    node per evaluation, and it dominated both VPU time and XLA compile."""
+    node per evaluation, and it dominated both run time and XLA compile."""
     from ..ops import ddarray
 
     if spec == 2.0:

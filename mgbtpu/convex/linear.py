@@ -74,7 +74,7 @@ def convex_linear(mg=None, *, idx=None, A=None, b=None,
 
     def _parts(A_row, b_row, y):
         """Scalar-list form (see convex/_common.py): A nested scalars,
-        F a list of nc scalars — Mosaic-lowerable inside Pallas kernels."""
+        F a list of nc scalars."""
         A = mat_scalars(A_row, nc, ni)
         ys = vec_scalars(y, n=ni, idx=idx_t)
         F = [ssum([A[i][j] * ys[j] for j in range(ni)]) + comp(b_row, i)

@@ -3,7 +3,7 @@
 Operators are exact per-triangle gradient blocks (3x3), nodal quadrature is
 the corner rule (area/3 per vertex). Capability parity with reference
 ``src/fem2d_P1.jl``; assembly vectorized over the element axis (the blocks
-land directly in the (N, 3, 3) MXU layout).
+land directly in the (N, 3, 3) batched layout).
 """
 from __future__ import annotations
 

@@ -5,8 +5,8 @@ with exact polynomial interpolation as transfers, and the zero-trace subspace
 built by *basis truncation* (columns T_k - T_{0|1}) rather than node masking.
 Capability parity with reference ``src/spectral1d.jl`` / ``src/spectral2d.jl``.
 
-On TPU, a spectral geometry is the degenerate single-element case of the
-panel machinery: one dense (1, n, n) block feeding the MXU.
+A spectral geometry is the degenerate single-element case of the panel
+machinery: one dense (1, n, n) block.
 """
 from __future__ import annotations
 

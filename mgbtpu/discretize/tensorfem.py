@@ -9,7 +9,7 @@ components of the intrinsic gradient, weights sqrt(det(J^T J)) * tensor-CC.
 Capability parity with reference ``src/TensorFEM.jl`` (geometry build at
 :428-490, dofmap at :338-383, boundary at :643-678, geometric refinement at
 :865-954) — re-implemented with vectorized numpy; all per-element math is
-batched (the broken operators land directly in the (N, p, q) MXU layout).
+batched (the broken operators land directly in the (N, p, q) layout).
 All indices are 0-based.
 """
 from __future__ import annotations

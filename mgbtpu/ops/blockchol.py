@@ -1,19 +1,19 @@
 """Blocked dense Cholesky + SPD inverse with O(1) program size.
 
-XLA's CholeskyExpander / TriangularSolveExpander UNROLL their blocked
-loops: at n=5057 one `lax.linalg.cholesky` compiles to 62.7 MB of TPU code
-and a `cho_solve(cf, eye)` explicit inverse allocates a 2.13 GB temp (the
-n-RHS triangular solve materializes every intermediate panel). The frozen
-dense preconditioner built per centering (solver/newton.py) stacked five of
-these, putting the Newton program at ~300 MB of generated code — which is
-what crashed the TPU worker at L=6 and held warm compiles at ~2 minutes.
+XLA's CholeskyExpander / TriangularSolveExpander unroll their blocked
+loops on backends without a library Cholesky, and a `cho_solve(cf, eye)`
+explicit inverse materializes every intermediate panel of the n-RHS
+triangular solve. The frozen dense preconditioner built per centering
+(solver/newton.py) stacks several of these, so the program size grew with
+n. On the GPU `lax.linalg.cholesky` is a cuSOLVER call; whether this module
+still pays there is not yet measured.
 
 Here the right-looking blocked factorization is a ``lax.fori_loop`` over
 column blocks (dynamic slices into a padded buffer; the trailing SYRK is a
-full-width masked update — ~3x the minimal FLOPs, all MXU, still O(n^3))
+full-width masked update — ~3x the minimal FLOPs, all matmul, still O(n^3))
 and the inverse is a ``lax.scan`` over 256-column identity blocks through
 two fixed-width triangular solves. Program size is independent of n
-(~15 MB total); compile is seconds.
+and compile is seconds.
 
 Replaces the cuDSS analysis+factor role of the reference's CUDA extension
 (``ext/MultiGridBarrierCUDAExt/cudss_solver.jl:49-408``).
@@ -62,7 +62,7 @@ def blocked_cholesky(A, block=512):
 def blocked_tril_inverse(L, block=512):
     """L^-1 for lower-triangular L by blocked forward substitution on an
     identity RHS: per row-block one small (block x block) triangular solve
-    plus full-width MXU matmuls — no n-dependent expander code (XLA's
+    plus full-width matmuls — no n-dependent expander code (XLA's
     TriangularSolveExpander unrolls over n: a (5120, 512)-RHS solve alone
     was ~30 MB of code)."""
     n = L.shape[0]
@@ -96,7 +96,7 @@ def blocked_tril_inverse(L, block=512):
 
 def spd_inverse_from_chol(L, block=512):
     """(L L^T)^-1 = (L^-1)^T (L^-1): blocked triangular inversion + one
-    SYRK-shaped MXU matmul."""
+    SYRK-shaped matmul."""
     X = blocked_tril_inverse(L, block=block)
     return jax.lax.dot(X.T, X, precision=jax.lax.Precision.HIGHEST)
 
@@ -110,7 +110,7 @@ def shifted_spd_inverse(Hmat, shifts=(2.0, 32.0)):
     The regularization shift directly floors the preconditioned spectrum
     (kappa_pre ~ shift / lambda_min), so prefer the smallest shift whose
     factorization stays finite; the explicit inverse turns preconditioner
-    applications into MXU matmuls instead of latency-bound triangular
+    applications into matmuls instead of latency-bound triangular
     solves."""
     import numpy as _np
 

@@ -1,9 +1,8 @@
 """Host-side structured block operators.
 
 The reference's ``BlockDiag`` (``src/BlockMatrices.jl:11-29``) stores a broken
-FEM operator as one dense p-by-q block per element; on TPU the natural layout
-is an ``(N, p, q)`` dense tensor whose matvec is a single batched einsum on
-the MXU. Spectral operators are the degenerate case N=1 (one big block), so
+FEM operator as one dense p-by-q block per element; here the layout is an
+``(N, p, q)`` dense tensor whose matvec is a single batched einsum. Spectral operators are the degenerate case N=1 (one big block), so
 every discretization flows through the same panel/batched-GEMM machinery.
 
 This module holds the *host* (numpy/scipy) representation used during setup;

@@ -1,16 +1,13 @@
-"""128-blocked sparse matrices (BSR) — the TPU-native sparse format.
+"""128-blocked sparse matrices (BSR) for level-space operators.
 
-XLA:TPU lowers element-wise gathers/scatters to ~0.15M elements/ms
-(measured), so ELL-style sparse ops at n ~ 2e4+ cost milliseconds per
-apply. Tiling to (B, B) dense blocks turns a sparse matvec into a
-TILE-level gather (B-wide slices — efficient), a batched (T, B, B) x
-(T, B) contraction on the MXU, and a B-wide segment-sum: measured
-0.27 ms f32 / 1.0 ms dd for a 20k-dof, 8-tiles-per-row operator vs
-11 ms for the same apply through ELL gathers.
+Tiling to (B, B) dense blocks turns a sparse matvec into a TILE-level
+gather (B-wide slices), a batched (T, B, B) x (T, B) matmul contraction,
+and a B-wide segment-sum, instead of element-wise ELL gathers. Not yet
+measured on the GPU.
 
 Combined with a bandwidth-reducing permutation (reverse Cuthill-McKee)
 the fill-in stays small for the mesh-local patterns this solver
-produces. This is the TPU re-design of the reference's BlockMatrices
+produces. This is a re-design of the reference's BlockMatrices
 batched-GEMM path (``src/BlockMatrices.jl``) applied to *level-space*
 operators (FSAI factors, transfers) rather than element blocks.
 """
@@ -23,7 +20,7 @@ import scipy.sparse as sp
 
 from ..utils import pytree_dataclass, to_dev
 
-B = 128  # tile edge: MXU/VPU native lane width
+B = 128  # tile edge
 
 
 @pytree_dataclass(static=("n_rows", "n_cols", "nrt", "nct", "T"))

@@ -7,8 +7,7 @@ amplified by t ~ 1/tol and floors the computed Newton decrement around
 3e-3 — the round-1 accuracy wall). Writing the per-node barrier functions
 generically over the scalar type and feeding them ``DD`` inputs evaluates
 them in double-float (~2^-48 relative) with zero code duplication: the same
-source serves the f64 (CPU) path with plain arrays and the f32 (TPU) path
-with DD.
+source serves the f64 path with plain arrays and the f32 path with DD.
 
 A ``DD`` wraps (hi, lo) f32 arrays with |lo| <= ulp(hi)/2 and overloads
 ``+ - * / ** @``, indexing, ``sum``; ``Log``/``safe_pow`` in

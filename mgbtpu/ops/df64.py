@@ -1,13 +1,13 @@
 """Double-float ("df64") arithmetic: ~49-bit-mantissa reals as float32 pairs.
 
-TPU v5e has no hardware float64; the multigrid barrier method needs
-higher-than-f32 accuracy in exactly two places — the reductions that
+The float32 solve path (``dtype=np.float32``) emulates float64 where the
+multigrid barrier method needs higher-than-f32 accuracy in exactly two places — the reductions that
 assemble the Newton system (sums of PSD per-node contributions whose f32
 rounding makes the assembled Hessian numerically indefinite) and the solve's
 residual/decrement dot products. This module provides error-free transforms
 (Knuth two_sum, Dekker split/two_prod — all plain IEEE f32 adds/muls, no FMA
 required) and fully vectorized pairwise tree reductions over an axis, so
-every df64 reduction is a log-depth chain of elementwise VPU ops.
+every df64 reduction is a log-depth chain of elementwise ops.
 
 A df64 value is a pair (hi, lo) with |lo| <= ulp(hi)/2; arrays are pairs of
 equal-shape f32 arrays. Relative accuracy ~ 2^-48 ~ 4e-15.
@@ -101,7 +101,7 @@ def dd_tree_sum(x, axis):
     """Pairwise (tree) reduction of a df64 array along ``axis``.
 
     log2(K) vectorized dd_add rounds; equivalent accuracy to sequential
-    compensated summation but fully parallel (VPU-friendly).
+    compensated summation but fully parallel.
     """
     hi, lo = x
     hi = jnp.moveaxis(hi, axis, -1)

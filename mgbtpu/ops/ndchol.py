@@ -1,4 +1,4 @@
-"""Nested-dissection multifrontal Cholesky on the MXU.
+"""Nested-dissection multifrontal Cholesky from batched dense factorizations.
 
 The deep-t barrier Hessian has hundreds of near-null equilibrated
 eigenvalues that no smoother/geometric-coarse combination represents
@@ -7,8 +7,8 @@ contraction 0.998) — iterative fine-level solves are structurally
 mismatched, while a direct factorization with shift below lambda_min
 handles the same systems effortlessly (the dense path's behavior). The
 reference leans on cuDSS sparse Cholesky for exactly this reason
-(``ext/MultiGridBarrierCUDAExt/cudss_solver.jl``). TPUs have no sparse
-direct library; this module builds one from the FEM element structure:
+(``ext/MultiGridBarrierCUDAExt/cudss_solver.jl``). JAX has no sparse
+direct solver; this module builds one from the FEM element structure:
 
 - SYMBOLIC (host, once per hierarchy level): recursive coordinate
   bisection of the ELEMENTS (element centroids always exist) into a
@@ -22,7 +22,7 @@ direct library; this module builds one from the FEM element structure:
   one BATCH of dense partial factorizations — batched Cholesky of the
   eliminated block, batched triangular solve for the coupling, batched
   SYRK for the Schur complement. Front sizes are O(sqrt(region)), so the
-  whole factorization is O(n^1.5) flops of pure MXU work with O(levels)
+  whole factorization is O(n^1.5) flops of batched dense work with O(levels)
   sequential steps.
 
 - SOLVE: forward/backward sweeps over the same structure.
@@ -589,10 +589,9 @@ def nd_solve_ref(plan: NDPlan, fact, rhs: np.ndarray):
 
 import os as _os
 
-# Leaf assembly form: "gemm" (default) = one-hot incidence GEMMs on the
-# MXU; "gather" = the two-axis gather + dd tree-sum (the original form —
-# measured at ~700 ms and ~850 s of compile at fem2d_P2 L=5 on a v5e,
-# ~100% of nd_factor_dd's cost; kept as the oracle/fallback).
+# Leaf assembly form: "gemm" (default) = one-hot incidence GEMMs;
+# "gather" = the two-axis gather + dd tree-sum (the original form, which
+# measured far slower to run and to compile; kept as the oracle/fallback).
 ND_ASM = _os.environ.get("MGBTPU_ND_ASM", "gemm")
 
 
@@ -712,7 +711,7 @@ def nd_factor_dd(dp: "NDDev", Heh, Hel, diag_shift):
             Lf = _bshard(dp, dd_cholesky_pform(Ah, Al))
             U = _bshard(dp, dd_tri_solve_right_pinv(Lf[0], Lf[1], Bh, Bl))
         elif TRI_INV:
-            # store L^-1 (Newton-Schulz, MXU) instead of L: U becomes one
+            # store L^-1 (Newton-Schulz GEMMs) instead of L: U becomes one
             # Ozaki GEMM here and every solve-time substitution becomes a
             # batched dd GEMV. UNSAFE at depth — the inverse application
             # cancels (ops/ddlinalg.py TRI_MODE note); kept for A/Bs.

@@ -1,13 +1,12 @@
-"""Double-float GEMM on the MXU via Ozaki-style error-free slicing.
+"""Double-float GEMM from bf16 matmuls via Ozaki-style error-free slicing.
 
 The dd multifrontal factorization (ops/ndchol.py + ops/ddlinalg.py) was
-built on elementwise VPU error-free transforms: its Schur/SYRK updates and
-triangular-solve GEMMs cost ~30 VPU flops per inner element, O(n^1.5)
-total per factorization — the dominant per-Newton-iteration cost at deep
-levels (the round-3 memory note names the split-GEMM as the intended fix).
+built on elementwise error-free transforms: its Schur/SYRK updates and
+triangular-solve GEMMs cost ~30 flops per inner element, O(n^1.5) total
+per factorization — the dominant per-Newton-iteration cost at deep levels.
 
 This module computes dd-accurate matrix products as a small number of
-bf16 MXU matmuls (the Ozaki scheme, cf. Ozaki et al. 2012 / modern
+bf16 matmuls (the Ozaki scheme, cf. Ozaki et al. 2012 / modern
 "matmul emulation" on low-precision units):
 
 - Each dd operand row is scaled by a power of two (its running-max
@@ -15,16 +14,16 @@ bf16 MXU matmuls (the Ozaki scheme, cf. Ozaki et al. 2012 / modern
   is EXACTLY representable in bfloat16 (s <= 7 plus a carry bit).
 - Products of two slices are exact in f32, and a length-n sum of such
   products stays exact when 2*s + ceil(log2 n) <= 22 — s is chosen per
-  call from the inner dimension, so every MXU matmul
+  call from the inner dimension, so every matmul
   (bf16 x bf16 -> f32 accumulation) is ERROR-FREE.
 - The ~S(S+1)/2 exact partial products are combined with a compensated
   (two_sum) tree reduction and rescaled; dropped slices contribute below
-  ~2^-48 of the row scale — the same backward-error level as the VPU dd
-  pipeline, at MXU instead of VPU throughput (~25x at the large fronts).
+  ~2^-48 of the row scale — the same backward-error level as the
+  elementwise dd pipeline, at matmul throughput.
 
 Used by ops/ddlinalg.py for the Schur SYRK and the blocked triangular
 solve / Cholesky trailing updates whenever the inner dimension crosses
-OZAKI_MIN_INNER; the rolled VPU path remains for small fronts and as the
+OZAKI_MIN_INNER; the rolled elementwise path remains for small fronts and as the
 oracle in tests.
 """
 from __future__ import annotations
@@ -36,8 +35,8 @@ from jax import lax
 
 from . import df64
 
-# below this inner dimension the slicing overhead and MXU tile padding
-# (128-lane contraction) beat the split-GEMM win; tunable for sweeps
+# below this inner dimension the slicing overhead beats the split-GEMM
+# win; tunable for sweeps
 import os as _os
 
 OZAKI_MIN_INNER = int(_os.environ.get("MGBTPU_OZAKI_MIN_INNER", 32))
@@ -45,7 +44,7 @@ OZAKI_MIN_INNER = int(_os.environ.get("MGBTPU_OZAKI_MIN_INNER", 32))
 # margin keeps the dropped tail below the dd pipeline's own roundoff.
 # Tunable (MGBTPU_OZAKI_BITS) for precision/speed A-Bs: the factor only
 # PRECONDITIONS an IR/CG loop, so a ~2^-b factor with b >= log2(kappa)+4
-# still converges — fewer slices = quadratically fewer MXU matmuls.
+# still converges — fewer slices = quadratically fewer matmuls.
 _TARGET_BITS = int(_os.environ.get("MGBTPU_OZAKI_BITS", 49))
 
 
@@ -114,7 +113,7 @@ def _combine(parts, weights=None, s=0):
     A class of g <= 16 parts at magnitude <= n * 2^{-ks} plain-sums with
     error < g * eps32 * n * 2^{-ks} <= n * 2^{-49} — below the dd
     pipeline's own ~2^-48 tail — while the tree shrinks from S(S+1)/2
-    parts to ~half. The combine is the measured dominant VPU cost of the
+    parts to ~half. The combine is the measured dominant elementwise cost of the
     factor-path GEMMs at inner dim 32 (36 compensated parts per product
     at the default 49 bits), so this is latency on the ND critical path,
     not bookkeeping."""

@@ -1,12 +1,12 @@
-"""Multi-chip sharding of the barrier solver.
+"""Multi-device sharding of the barrier solver.
 
 The reference is a single-process solver shaped for an out-of-tree
-row-partitioned MPI backend (``src/mgb.jl:393-403``); the TPU-native
-distributed story is jax.sharding over a device mesh: the node/element axes
-of every per-node grid, panel tensor, and operator-value array shard across
-chips, XLA inserts the all-reduce/scatter collectives for the segment-sum
-assembly and the reductions (they ride ICI within a slice), and the small
-level-coefficient vectors and dense Newton systems stay replicated.
+row-partitioned MPI backend (``src/mgb.jl:393-403``); here the distributed
+story is jax.sharding over a 1-D device mesh: the node/element axes of
+every per-node grid, panel tensor, and operator-value array shard across
+devices, XLA inserts the all-reduce/scatter collectives for the segment-sum
+assembly and the reductions, and the small level-coefficient vectors and
+dense Newton systems stay replicated.
 
 Usage:
     mesh = make_mesh(8)
@@ -14,7 +14,7 @@ Usage:
 
 Every array whose leading (or element-count) axis is divisible by the mesh
 size shards along it; everything else replicates. With GSPMD the same jitted
-Newton program runs un-sharded on one chip and sharded on many.
+Newton program runs un-sharded on one device and sharded on many.
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ poison the sum (the 0*inf=NaN hazard; reference ``src/convex.jl:207-257``).
 The linear term always uses the physical quadrature weights (passed combined
 as wc = w * t * c).
 
-float32/TPU path (``ops.dd``): the entire per-node evaluation runs in
+float32 path (``ops.dd``): the entire per-node evaluation runs in
 double-float — Dz0 is threaded as a DD pair, Dz = Dz0 + G s accumulates in
 dd, and the per-node F0/F1/F2 (written generically over the scalar type,
 see ``ops/ddarray.py``) see DD inputs. The objective is a stacked df64
@@ -47,15 +47,7 @@ def make_level_fns(Fs):
         return Dz0 + ops.apply_G(s)
 
     def _node(F, args, Dz, dd):
-        """vmap(F) over nodes; on the TPU dd path the whole per-node dd
-        derivative chain runs inside ONE Pallas kernel (ops/pallas_dd.py) —
-        XLA otherwise inlines the ~10^3-op error-free-transform chain into
-        every call site's fusion (310+ MB programs, the L=6 worker crash)."""
-        from ..ops import pallas_dd
-        from ..ops.ddarray import DD
-
-        if dd and pallas_dd.enabled() and isinstance(Dz, DD):
-            return pallas_dd.node_eval(F, args, (Dz.hi, Dz.lo))
+        """vmap(F) over nodes."""
         return jax.vmap(F)(*args, Dz)
 
     def f0(s, ops, Dz0, wc, bw, *args):

@@ -3,8 +3,8 @@
 For levels too large to factorize densely, the barrier Gram Hessian
 H = sum_e P_e' Y_e P_e is sparse on the level space but its ALGEBRAIC
 structure shifts every centering (the per-node weights Y carry 1/slack^2
-wall terms), so the preconditioner must refresh on device. FSAI fits the
-TPU execution model exactly:
+wall terms), so the preconditioner must refresh on device. FSAI is built
+from static-shape batched dense work only:
 
 - the PATTERN (lower triangle of H's sparsity, truncated to
   MGBTPU_FSAI_K entries/row) is static per level — compiled once;
@@ -14,8 +14,7 @@ TPU execution model exactly:
   Gauss-Jordan batched solve (jnp.linalg solve/cholesky lower to 30-80 ms
   for the same batch — the unrolled elimination is ~2 ms);
 - the APPLY runs through 128-blocked sparse tiles (ops/bsr.py): tile
-  gather + batched MXU contraction + tile segment-sum, measured ~40x
-  faster than ELL element gathers at 20k dofs.
+  gather + batched matmul contraction + tile segment-sum.
 
 Per row i with lower-neighbor set J_i (diagonal last), on the
 equilibrated matrix Hs = D H D:
@@ -26,8 +25,8 @@ which gives diag(G Hs G') = 1 (Kolotilina-Yeremin FSAI), and
 M^-1 = G'G is SPD. Reference counterpart: the cuDSS sparse direct
 factorization used by the CUDA extension
 (``ext/MultiGridBarrierCUDAExt``, ``src/utils.jl:142-145``) — re-designed
-as an approximate inverse because TPUs have no efficient sparse
-triangular solves, while batched dense algebra is native. Newton-level
+as an approximate inverse: JAX has no sparse triangular solves, while
+batched dense algebra is native. Newton-level
 integration (including the coarse-grid correction that restores
 level-independent CG counts) lives in ``solver/newton.py``.
 """
@@ -164,9 +163,8 @@ def build_fsai_plan(cols: np.ndarray, n_J: int) -> FSAIPlan:
 def _gj_solve_last(Bk, dtype):
     """x with Bk x = e_last for a batch of SPD (k, k) blocks, by UNROLLED
     Gauss-Jordan elimination (no pivoting: blocks are jittered SPD).
-    k steps of (n, k, k+1) element-wise work — measured ~2 ms at
-    (20353, 14, 14) where jnp.linalg.solve costs 78 ms and
-    cholesky+solve_triangular 33 ms on TPU."""
+    k steps of (n, k, k+1) element-wise work, in place of the batched
+    jnp.linalg.solve / cholesky calls (not yet compared on the GPU)."""
     n, k, _ = Bk.shape
     e = jnp.zeros((n, k, 1), dtype).at[:, k - 1, 0].set(1.0)
     M = jnp.concatenate([Bk, e], axis=2)               # (n, k, k+1)
@@ -218,7 +216,7 @@ def fsai_values(plan: FSAIPlan, ops, Lnode):
 
 def fsai_apply(plan: FSAIPlan, Gtiles, rs):
     """M_s r = G' (G r) in equilibrated coordinates (SPD), via BSR tiles:
-    tile gather + batched MXU contraction + tile segment-sum, twice
+    tile gather + batched matmul contraction + tile segment-sum, twice
     (the adjoint reuses the same tiles with roles swapped)."""
     n, nt = plan.n_J, plan.g_nct
     xt = jnp.zeros((nt * _B,), rs.dtype).at[:n].set(rs).reshape(nt, _B)

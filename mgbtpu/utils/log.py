@@ -28,7 +28,7 @@ def _barrier_floor(dtype):
 def Log(x):
     """log(x) for x > sqrt(tiny), else -inf (never raises, jit-safe).
 
-    Dispatches on the input kind: a ``DD`` double-float input (the f32/TPU
+    Dispatches on the input kind: a ``DD`` double-float input (the f32
     barrier-derivative path) is evaluated in double-float.
     """
     from ..ops.ddarray import DD, dd_log

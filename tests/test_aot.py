@@ -168,3 +168,27 @@ def test_evict_lru(tmp_path, monkeypatch):
     # b0 is pinned (keep), b1 (oldest unpinned) evicted until under 600B
     assert "b3.jaxexp" in left and "b0.jaxexp" in left
     assert sum(1 for f in left) <= 3
+
+
+def test_cache_off_under_explicit_device(monkeypatch):
+    """Exports lower for the default backend, so an explicit
+    ``jax.default_device`` (``mgb_solve(device=...)``) runs the plain jit."""
+    import jax
+
+    from mgbtpu.utils import aot
+
+    monkeypatch.setenv("MGBTPU_AOT_CACHE", "1")
+    assert aot.enabled()
+    with jax.default_device(jax.devices("cpu")[0]):
+        assert not aot.enabled()
+    assert aot.enabled()
+
+
+def test_cache_off_without_flatbuffers(monkeypatch):
+    """Without the serializer package every export would trace in vain:
+    the cache switches itself off."""
+    from mgbtpu.utils import aot
+
+    monkeypatch.setenv("MGBTPU_AOT_CACHE", "1")
+    monkeypatch.setattr(aot, "_can_serialize", lambda: False)
+    assert not aot.enabled()

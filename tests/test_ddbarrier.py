@@ -1,6 +1,6 @@
 """Double-float barrier evaluation: accuracy oracles vs float64.
 
-The f32/TPU path evaluates the per-node barrier derivatives in double-float
+The f32 path evaluates the per-node barrier derivatives in double-float
 (DD inputs through the generic barrier code, ``mgbtpu/ops/ddarray.py``).
 These tests pin the two claims the solver relies on:
 
@@ -84,7 +84,7 @@ def test_dd_hessian_matches_f64():
 
 
 def test_f32_dd_solve_matches_f64_at_reference_tol():
-    """The VERDICT round-2 bar: the dd path at the reference tolerance
+    """The dd path at the reference tolerance
     reproduces the f64 solution to ~1e-8 with comparable Newton counts."""
     from mgbtpu import amg, assemble, fem1d, mgb_solve, subdivide
 

@@ -1,11 +1,11 @@
 """interpolate + plot smoke/correctness tests (reference runtests model:
 interpolate(sol, 0.75) ~ 0.5 for the 1D golden; spectral extrapolation must
 work on BOTH sides)."""
-import matplotlib
-
-matplotlib.use("Agg")
-
 import numpy as np
+import pytest
+
+matplotlib = pytest.importorskip("matplotlib")
+matplotlib.use("Agg")
 
 from mgbtpu import (amg, assemble, fem1d, fem2d_P2, interpolate, mgb_solve,
                     spectral1d, spectral2d)

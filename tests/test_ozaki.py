@@ -1,14 +1,13 @@
 """Ozaki split dd-GEMM (ops/ozaki.py) vs float64 oracles.
 
-Accuracy bar: the scheme is error-free through the MXU matmuls and drops
+Accuracy bar: the scheme is error-free through the bf16 matmuls and drops
 only sub-2^-48-of-row-scale slices, so products of f64-representable dd
 inputs must match the f64 result to ~2^-45 of the result norm — far
 tighter than anything a plain f32 path could produce. Oracle comparisons
 run EAGERLY: XLA:CPU jit is known to break error-free-transform
-compositions at f32-eps level in some fusion patterns (see
-tests/test_pallas.py / the dd smoke script, which asserts hardware
-exactness on TPU); a separate jit-vs-eager check uses a bar above that
-wobble.
+compositions at f32-eps level in some fusion patterns; a separate
+jit-vs-eager check uses a bar above that wobble (``chip_smoke.py`` checks
+the jitted product on the GPU against the 2^-44 bar).
 """
 import numpy as np
 import pytest

@@ -48,7 +48,7 @@ def test_fem2d_P1_solve():
 
 
 def test_structured_blockdiag_operators():
-    # every FEM geometry carries BlockDiag operators (the MXU layout) and
+    # every FEM geometry carries BlockDiag operators (the batched layout) and
     # to_sparse/extract round-trips (reference runtests.jl:59-76)
     from mgbtpu.ops import BlockDiagHost, extract_block_diag
 

@@ -1,7 +1,8 @@
 """Fused on-device t-ramp vs the classic host-stepped loop.
 
-The TPU path runs the whole path-following loop in one jitted program
-(``solver/ramp.py``); these tests force it on CPU (MGBTPU_FUSED_RAMP=1) and
+On a device other than the host the whole path-following loop runs in one
+jitted program (``solver/ramp.py``); these tests force it on the CPU
+(MGBTPU_FUSED_RAMP=1) and
 require bit-level agreement of the trajectory endpoints with the host loop,
 plus the phase-I early stop through the fused feasibility check.
 """
@@ -124,3 +125,46 @@ def test_two_phase_nd_factor_matches_pure_dd(fused, monkeypatch):
     its1 = int(np.asarray(s1.SOL_main["its"]).sum())
     its2 = int(np.asarray(s2.SOL_main["its"]).sum())
     assert its1 <= its2 + 12, (its1, its2)
+
+
+def test_failing_ramp_program_raises(fused, monkeypatch):
+    """An error in the fused ramp's dispatch propagates out of mgb_solve:
+    no silent resume on the host-stepped loop."""
+    from mgbtpu import amg, assemble, fem1d, mgb_solve, subdivide
+    from mgbtpu.solver.mgb import ProblemKernels
+
+    def boom(self, *a, **k):
+        raise RuntimeError("ramp program failed")
+
+    monkeypatch.setattr(ProblemKernels, "run_ramp", boom)
+    prob = assemble(amg(subdivide(fem1d(dtype=np.float64), 1)), p=1.5)
+    with pytest.raises(RuntimeError, match="ramp program failed"):
+        mgb_solve(prob)
+
+
+def test_solve_platform_follows_explicit_device():
+    """The fused-ramp switch reads the platform the solve runs on:
+    ``mgb_solve(device="cpu")`` inside a process whose default backend is
+    a GPU still takes the host loop."""
+    import jax
+
+    from mgbtpu.solver.mgb import _solve_platform
+
+    assert _solve_platform() == jax.default_backend()
+    with jax.default_device(jax.devices("cpu")[0]):
+        assert _solve_platform() == "cpu"
+
+
+def test_float32_refused_on_gpu(monkeypatch):
+    """On the GPU the float32 + double-float path misses its accuracy bar:
+    assembling (or solving) a float32 problem there raises and names
+    float64; float64 problems and host float32 solves are unaffected."""
+    from mgbtpu import amg, assemble, fem1d, subdivide
+    from mgbtpu.solver import mgb
+
+    mg = amg(subdivide(fem1d(dtype=np.float32), 1))
+    assemble(mg, p=1.5, dtype=np.float32)       # the host runs dd
+    monkeypatch.setattr(mgb, "_solve_platform", lambda: "gpu")
+    with pytest.raises(ValueError, match="float64"):
+        assemble(mg, p=1.5, dtype=np.float32)
+    assemble(amg(subdivide(fem1d(), 1)), p=1.5)

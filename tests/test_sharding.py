@@ -1,4 +1,4 @@
-"""Multi-chip sharding dry run on the virtual 8-device CPU mesh."""
+"""Multi-device sharding dry run on the virtual 8-device CPU mesh."""
 import jax
 import numpy as np
 import pytest
@@ -103,9 +103,9 @@ def test_fine_pcg_matvec_collectives():
     """Pin the GSPMD collective contract of the sharded Hessian matvec:
     element-sharded compute + ONE all-reduce (the segment-sum assembly),
     and no all-gather anywhere — in particular nothing materializes an
-    (n_J, n_J)-sized dense object on the fine level. This is the TPU-native
+    (n_J, n_J)-sized dense object on the fine level. This is the
     equivalent of the reference's row-partitioned matvec-only MPI contract
-    (src/mgb.jl:393-403): collectives ride ICI, O(n_J) bytes per matvec."""
+    (src/mgb.jl:393-403): O(n_J) bytes of collectives per matvec."""
     import re
     from collections import Counter
 
@@ -162,3 +162,16 @@ def test_fine_pcg_matvec_collectives():
         assert f"f32[{ops.n_J},{ops.n_J}]" not in txt2
     finally:
         monkeypatch_ctx.undo()
+
+
+def test_four_device_rehearsal():
+    """chip_smoke.py --four's phase on four virtual CPU devices: the ND
+    direct path (L=4 tops DENSE_MAX) sharded over a 4-device mesh matches
+    the one-device solve."""
+    if len(jax.devices()) < 4:
+        pytest.skip("needs four devices")
+    import chip_smoke
+
+    dz, peaks = chip_smoke.phase_four(L=4, n=4)
+    assert dz <= chip_smoke.AGREE_BAR
+    assert len(peaks) == 4

@@ -1,7 +1,8 @@
 """Compilability proxy (reference test_cuda.jl model): every barrier,
 cobarrier, and slack function of every Convex constructor must be
-jit-traceable under jax.eval_shape — the precondition for TPU compilation,
-just as isbits was the precondition for CUDA kernel compilation."""
+jit-traceable under jax.eval_shape — the precondition for device
+compilation, just as isbits was the precondition for CUDA kernel
+compilation. The chip-marked test checks GPU-vs-CPU agreement."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,13 +66,13 @@ def test_feasibility_wrapper_traceable():
         jax.eval_shape(F, *rows, *box, yy)
 
 
-@pytest.mark.skipif(jax.default_backend() == "cpu",
-                    reason="needs a TPU (the reference's GPU-agreement test)")
-def test_cpu_tpu_agreement():  # pragma: no cover - hardware gated
+@pytest.mark.chip
+def test_gpu_cpu_agreement(gpu):
+    """float64 solve on the GPU against the same solve on XLA:CPU, to the
+    reference's cross-backend bar (test/test_cuda.jl:52)."""
     from mgbtpu import assemble, mgb_solve
 
-    mg = _mg()
-    prob = assemble(mg, p=1.5, dtype=np.float32)
-    z_acc = mgb_solve(prob, device="tpu").z
+    prob = assemble(_mg(), p=1.5)
+    z_gpu = mgb_solve(prob, device=gpu).z
     z_cpu = mgb_solve(prob, device="cpu").z
-    assert np.abs(z_acc - z_cpu).max() < 1e-3
+    assert np.abs(z_gpu - z_cpu).max() < 1e-8
